@@ -1,9 +1,10 @@
-"""mp3stego_tpu — TPU-native MP3 steganography framework.
+"""mp3stego_tpu — MP3 steganography framework on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 tomershay100/mp3-steganography-lib (mp3stego-lib): a complete MPEG-1 Layer III
 decoder and Shine-style fixed-point encoder with a Huffman-pair steganographic
-channel, batched over granules/files on TPU, plus the five-operation
+channel, batched over granules/files on an accelerator (one GPU, or a
+mesh of them), plus the five-operation
 ``Steganography`` façade.
 
 Public API mirrors the reference package (__init__.py:1-4):

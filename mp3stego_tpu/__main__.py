@@ -13,13 +13,13 @@ import sys
 def main(argv=None):
     p = argparse.ArgumentParser(
         prog="mp3stego_tpu",
-        description="TPU-native MP3 codec + steganography")
+        description="MP3 codec + steganography on JAX")
     p.add_argument("-v", "--verbose", action="store_true",
                    help="print process information")
     p.add_argument("--precision", choices=("float64", "float32"),
                    default="float64",
                    help="decode numeric plane: float64 = bit-exact parity "
-                        "(host), float32 = TPU (<=1 LSB int16 deviation at "
+                        "(host), float32 = device (<=1 LSB int16 deviation at "
                         "~1e-4 rate)")
     sub = p.add_subparsers(dest="op", required=True)
 

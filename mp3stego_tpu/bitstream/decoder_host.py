@@ -13,7 +13,7 @@ reserved samplerate/bitrate header values, big_value > 288 pairs, and
 region counts past the band table.
 
 Everything here is sequential/irregular and stays on host; the output is a
-``ParsedMP3`` whose arrays are ready for the batched TPU numeric plane.
+``ParsedMP3`` whose arrays are ready for the batched device numeric plane.
 """
 
 from dataclasses import dataclass, field

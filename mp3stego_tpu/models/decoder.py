@@ -6,8 +6,8 @@ constructor, ``decode(quiet, reveal, txt_file_path)`` returning bitrate//1000,
 ``len#message`` reveal framing (decoder/decoder.py:86-108).
 
 The pipeline: host parse (sync walk, side info, reservoir, Huffman) -> batched
-TPU numeric plane (ops/decode_plane) -> int16 WAV. ``precision`` selects
-"float64" (bit-exact vs the reference) or "float32" (TPU throughput mode).
+device numeric plane (ops/decode_plane) -> int16 WAV. ``precision`` selects
+"float64" (bit-exact vs the reference) or "float32" (device throughput mode).
 """
 
 import os
@@ -24,12 +24,11 @@ from mp3stego_tpu.utils.wav import write_wav
 def _huffman_backend(precision: str) -> str:
     """Which engine unpacks Huffman samples (SURVEY §7.3 plans A/B).
 
-    Measured end-to-end on the v5e chip: the C++ host parser beats the
-    on-device bit-scan at every batch size (the device scan's 432-step
-    sequential fori_loop is latency-bound, ~1ms/step on this link), but the
-    device scan beats the pure-PYTHON fallback by a wide margin. So: "host"
-    whenever the native library is loadable, "device" when it is not and the
-    TPU float32 plane is in use. MP3STEGO_TPU_DEVICE_HUFFMAN=1/0 overrides.
+    The device scan is a 432-step sequential fori_loop; the C++ host parser
+    is the default whenever the native library loads (which is faster on
+    the GPU is not measured yet), and the device scan serves when it does
+    not and the float32 device plane is in use — it beats the pure-PYTHON
+    fallback by a wide margin. MP3STEGO_TPU_DEVICE_HUFFMAN=1/0 overrides.
     """
     env = os.environ.get("MP3STEGO_TPU_DEVICE_HUFFMAN")
     if env == "1":
@@ -47,7 +46,7 @@ class Decoder:
 
     :param file_path: the mp3 file path.
     :param output_file_path: the wav output file path.
-    :param precision: "float64" (bit-exact parity mode) or "float32" (fast TPU mode).
+    :param precision: "float64" (bit-exact parity mode) or "float32" (device mode).
     """
 
     def __init__(self, file_path: str, output_file_path: str,

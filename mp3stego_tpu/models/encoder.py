@@ -1,4 +1,4 @@
-"""WAV -> MP3 encoder: TPU-batched analysis/MDCT plane + exact host rate control.
+"""WAV -> MP3 encoder: device-batched analysis/MDCT plane + exact host rate control.
 
 Behavioural reference (bit-for-bit): /root/reference/mp3stego/encoder/
   MP3_Encoder.py (frame loop 596-650, iteration loop 760-815, scfsi 817-892,
@@ -6,7 +6,7 @@ Behavioural reference (bit-for-bit): /root/reference/mp3stego/encoder/
   bitstream formatting 1266-1547) and encoder.py:8-58 (driver + too_long).
 
 Architecture: the whole file's polyphase analysis + MDCT runs as ONE batched
-device computation (ops/encode_plane.analysis_mdct — MXU matmuls in exact Q31
+device computation (ops/encode_plane.analysis_mdct — matmuls in exact Q31
 fixed point). The rate-control search and bitstream serialization are
 irregular/sequential (reservoir + stego-cursor carries, SURVEY.md §2.2) and run
 on host with dense per-granule vector primitives (ops/quant). The stego channel
@@ -431,7 +431,7 @@ class MP3Encoder:
     def _encode_plane(self, num_frames: int, timer):
         """Whole-file encode via the device-resident search (ops/search_plane):
         analysis + rate-control search + final quantization never leave the
-        TPU; the host verifies float-fallback cells, redoes flagged granules
+        device; the host verifies float-fallback cells, redoes flagged granules
         with the exact oracle, applies the reservoir chain and serializes.
         Byte-identical to the sequential path (tests/test_search_plane.py)."""
         from mp3stego_tpu.ops import encode_plane
@@ -491,8 +491,8 @@ class MP3Encoder:
         """Fully-host encode engine: C++ analysis plane + C++ sequential
         whole-file rate search (reference frame order, live stego cursor,
         per-slot stale-address chains) + batched C serializer. Spectra never
-        cross the device link — on tunneled/latency-bound hosts this beats
-        the device plane for single streams; byte-identical to both. Returns
+        cross the device link — on hosts with a slow or high-latency link
+        this beats the device plane for single streams; byte-identical to both. Returns
         False when the native library is unavailable (callers fall back)."""
         from mp3stego_tpu.ops import encode_plane
 
@@ -590,7 +590,7 @@ class MP3Encoder:
         The per-step lane costs come from the AVX-512 C++ pass
         (``rate_cost_step``, ~8 ms per visited step for a 30 s stereo file)
         when the native library builds, else from the device cost grid
-        (ops/quant_batch — exact but gather-bound on TPU). The bisection
+        (ops/quant_batch — exact but gather-heavy). The bisection
         visits the same steps either way; the two sources agree except on
         the rare quantize-float-fallback lanes (the grid's f32 approximation
         of the reference's f64 expression), where a frame may land one rate
@@ -766,8 +766,8 @@ class MP3Encoder:
         # ONE device round trip for everything this pass might touch:
         # spectra rows + approx logs for the verify AND flag-redo lanes
         # (verification failures only ever add lanes already in the verify
-        # set, so their rows are covered too). On latency-bound links each
-        # extra device call costs its full dispatch+sync latency.
+        # set, so their rows are covered too). Each extra device call would
+        # cost its full dispatch+sync latency.
         t0 = _time.perf_counter()
         if res.get("_log_dev") is not None:
             rows_all, ls_g, lb_g = SP.fetch_rows_logs(

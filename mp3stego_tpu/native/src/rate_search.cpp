@@ -460,7 +460,7 @@ extern "C" int64_t rate_exact_eval(
 // estimate). Lanes whose quantization bails or overflows the ixmax gate
 // record `big_bits`. One vectorized pass per lane (~8 ms for a 30s stereo
 // file) — the exact host twin of one column of quant_batch's device grid,
-// which is gather-bound on TPU.
+// which is gather-heavy on the device.
 extern "C" int64_t rate_cost_step(
     const int32_t* xr_all, int64_t lanes, int64_t step, int64_t sr_off,
     int64_t big_bits, int64_t* out_bits) {

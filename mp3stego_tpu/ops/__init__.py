@@ -1,4 +1,4 @@
-"""Device numeric plane: batched JAX/XLA/Pallas kernels for the MP3 codec.
+"""Device numeric plane: batched JAX/XLA kernels for the MP3 codec.
 
 Decode: requantize -> MS stereo -> reorder/alias -> IMDCT -> frequency inversion ->
 polyphase synthesis. Encode: polyphase analysis -> MDCT -> alias butterflies ->
@@ -19,11 +19,15 @@ jax.config.update("jax_enable_x64", True)
 
 # Persistent compilation cache: the codec kernels have a handful of static
 # shapes per file length, so cross-process cache hits are the common case.
-# The default directory is host-fingerprinted (same scheme as the native .so
-# loader, native/__init__.py): XLA's CPU AOT entries are compiled for the
-# build machine's microarchitecture, and loading entries cached on a
-# different CPU spews cpu_aot_loader "machine type mismatch" errors and can
-# SIGILL. A per-host directory makes a copied/imaged home dir start clean.
+# JAX_COMPILATION_CACHE_DIR, when set, is honoured as JAX reads it, and no
+# other directory is set here. Otherwise the cache lives at a fixed path in
+# the checkout, <repo>/.jax_cache/<host tag>: the path is part of what makes
+# an entry found again, so it never depends on a temporary name, a PID or the
+# time. The per-host subdirectory exists because XLA's CPU AOT entries are
+# compiled for the writing machine's microarchitecture; loading them on a
+# different CPU logs machine-type-mismatch errors and can SIGILL.
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
 def _host_cache_tag() -> str:
@@ -41,21 +45,22 @@ def _host_cache_tag() -> str:
     return hashlib.sha256("|".join(bits).encode()).hexdigest()[:12]
 
 
-# MP3STEGO_TPU_JAX_CACHE="" (empty) disables the persistent cache entirely —
-# the multichip dryrun uses this: XLA:CPU AOT entries embed tuning pseudo-
-# features (+prefer-no-scatter/-gather) that the loader's host-feature probe
-# never reports, so every load logs a machine-type-mismatch error even on
-# the machine that wrote the entry.
-_cache_dir = os.environ.get(
-    "MP3STEGO_TPU_JAX_CACHE",
-    os.path.join(os.path.expanduser("~"), ".cache",
-                 f"mp3stego_tpu_jax-{_host_cache_tag()}"))
-if _cache_dir:
+def default_cache_dir() -> str:
+    """The compile-cache directory used when JAX_COMPILATION_CACHE_DIR is
+    unset: fixed inside the checkout (listed in .gitignore)."""
+    return os.path.join(REPO_ROOT, ".jax_cache", _host_cache_tag())
+
+
+def _enable_compile_cache() -> None:
     try:
-        os.makedirs(_cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", _cache_dir)
+        if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+            os.makedirs(default_cache_dir(), exist_ok=True)
+            jax.config.update("jax_compilation_cache_dir",
+                              default_cache_dir())
         jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    except Exception:  # cache is an optimization only
+    except Exception:  # the cache is an optimization only
         pass
 
+
+_enable_compile_cache()

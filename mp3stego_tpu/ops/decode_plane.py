@@ -1,16 +1,15 @@
-"""Batched TPU decode numeric plane.
+"""Batched device decode numeric plane.
 
 The reference decodes granule-by-granule with carried state
 (decoder/Frame.py:65-218: requantize, IMDCT + overlap-add, synthesis FIFO).
 Here the whole file is one dense batch:
 
 * requantize     — sign * pow43[|ix|] * 2^(exp1/4 - exp2/2), with NO
-                   data-dependent gathers (XLA lowers those to ~10 ns/element
-                   scalar loops on TPU — they were 78% of plane time):
-                   pow43 rows come off the int8 sample plane through an exact
-                   one-hot matmul, per-band exponents are computed on a
-                   compact 61-slot grid from side-info fields and expanded to
-                   samples by one MXU matmul (``_expand_slots``), and the
+                   data-dependent gathers: pow43 rows come off the int8
+                   sample plane through an exact one-hot matmul, per-band
+                   exponents are computed on a compact 61-slot grid from
+                   side-info fields and expanded to samples by one matmul
+                   (``_expand_slots``), and the
                    2^(q/4) scale is an exponent-bit construction. Only
                    compact int8/int16 fields cross the host->HBM link.
 * MS stereo      — masked vector op.
@@ -22,11 +21,11 @@ Here the whole file is one dense batch:
                    (out_t = blk_t[:18] + blk_{t-1}[18:]), not a scan.
 * freq inversion — static sign mask.
 * synthesis      — V_t = N @ s_t for all 18*T sub-steps as one (18T,32)@(32,64)
-                   matmul (MXU), then PCM_t[n] = sum_{j<16} D[32j+n] *
+                   matmul, then PCM_t[n] = sum_{j<16} D[32j+n] *
                    V_{t-j}[(j%2)*32+n]: a 16-tap FIR over the V history,
                    accumulated in the reference's j-order for bit-exactness.
 
-The jitted plane is the float32 TPU throughput mode; the float64 parity twin
+The jitted plane is the float32 device throughput mode; the float64 parity twin
 (``decode_granules_np``) reproduces the reference float-for-float on host
 (XLA's FMA contraction perturbs the last ulp, see its docstring).
 """
@@ -234,10 +233,10 @@ def _walk_maps(sr_idx: int, iso: bool = True):
 
 
 def _slot_maps(walk_is_short, walk_sfb, walk_win):
-    """Static sample->slot maps for the MXU expansion of per-band values.
+    """Static sample->slot maps for the matmul expansion of per-band values.
 
-    TPU gathers with data-dependent indices lower to scalar loops; the decode
-    plane instead computes per-band quantities on a compact slot grid and
+    Instead of gathers with data-dependent indices, the decode plane
+    computes per-band quantities on a compact slot grid and
     expands them to the 576-sample axis with one one-hot matmul
     (``_expand_slots``). Two grids:
 
@@ -597,16 +596,13 @@ _HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _expand_slots(vals, slot_map, mode, dtype):
-    """Expand per-slot values (..., T, K) to per-sample (..., T, 576) on the
-    MXU: out[.., t, s] = vals[.., t, slot_map[mode[.., t], s]].
+    """Expand per-slot values (..., T, K) to per-sample (..., T, 576) by
+    matmul: out[.., t, s] = vals[.., t, slot_map[mode[.., t], s]].
 
-    This replaces data-dependent ``take_along_axis`` over tiny axes — which
-    XLA lowers to scalar gathers on TPU (measured ~10 ns/element, the decode
-    plane's old bottleneck) — with one (.., 4K) @ (4K, 576) matmul against a
+    This replaces data-dependent ``take_along_axis`` over tiny axes with one (.., 4K) @ (4K, 576) matmul against a
     static {0,1} expansion matrix, selection over ``mode`` folded in via a
-    one-hot product. Exact for any float32 payload: HIGHEST-precision
-    emulation splits each f32 into bfloat16 parts whose 1.0-weighted partial
-    sums recombine without rounding."""
+    one-hot product. Exact for any float32 payload at HIGHEST precision
+    (full float32, no TF32): each sum has one nonzero 1.0-weighted term."""
     n_modes, n_samp = slot_map.shape
     k = vals.shape[-1]
     w = (slot_map[:, None, :] == jnp.arange(k, dtype=jnp.int32)[None, :, None])
@@ -620,7 +616,7 @@ def _expand_slots(vals, slot_map, mode, dtype):
 
 def _onehot_rows(idx, table, dtype):
     """table[idx] for a tiny table (rows, ...) via an exact one-hot matmul
-    (same TPU-gather avoidance as ``_expand_slots``); idx (...,), returns
+    (same gather avoidance as ``_expand_slots``); idx (...,), returns
     (..., *table.shape[1:])."""
     rows = table.shape[0]
     oh = (idx[..., None] == jnp.arange(rows, dtype=jnp.int32)).astype(dtype)
@@ -633,9 +629,9 @@ def _onehot_rows(idx, table, dtype):
 def _onehot_rows_2l(idx, table, dtype, lo: int = 16):
     """``table[idx]`` as a TWO-STAGE exact one-hot select: a hi-part one-hot
     matmul picks a ``lo``-row block, a lo-part one-hot mul+reduce folds
-    within it. Building the flat ``rows``-way one-hot is VPU-compare-bound;
-    the two stages cost ~(rows/lo + lo) compares per element instead
-    (measured ~1.5x on 129-256-row tables). Exact for any payload: every
+    within it. Building the flat ``rows``-way one-hot is compare-bound;
+    the two stages cost ~(rows/lo + lo) compares per element instead.
+    Exact for any payload: every
     product carries a 0/1 factor and each reduction has one nonzero term."""
     rows = table.shape[0]
     nhi = -(-rows // lo)
@@ -714,7 +710,7 @@ def _exc_indices(prep, tt, xp):
     """Flat scatter indices of the linbits escapes into a (2, tt, 576) plane.
 
     Padding sentinels must stay out-of-bounds under 32-BIT index math: XLA
-    on TPU truncates scatter indices to s32, and the raw sentinel
+    may truncate scatter indices to s32, and the raw sentinel
     _EXC_PAD_T*576 = 9*2^34 wraps to exactly 0 — which silently zeroed
     sample (ch0, granule0, s0) of any batched file with fewer escapes than
     the batch max. Clamp dropped entries to 2^31-1 (OOB for any flat plane
@@ -746,13 +742,12 @@ def _requantize_stage(prep, dtype):
     pow43, _, _ = _luts(dtype)
 
     # ---- requantize (Frame.py:157-218). Same math as exponent_indices +
-    # the three LUTs, restructured for the MXU: per-band exponents are
+    # the three LUTs, restructured for matmuls: per-band exponents are
     # computed on the compact 61-slot grid (22 long sfb + 3x13 short) and
     # expanded to samples by one one-hot matmul; the combined scale
     # 2^(exp1/4 - exp2x2/2) = 2^(q/4) is then an exact exponent-bit
     # construction (q>>2) times a 4-entry quarter-power select — no
-    # data-dependent gathers anywhere (they cost ~10 ns/element on TPU and
-    # were 78% of plane time).
+    # data-dependent gathers anywhere.
     #
     # |x|^(4/3): exact LUT rows via one-hot matmul for |x| <= 128 (the int8
     # sample plane's full range, including -128); the rare linbits escapes
@@ -904,7 +899,7 @@ def _imdct_stage(prep, x, dtype):
     ch, tt = x.shape[0], x.shape[1]
     s = x.reshape(ch, tt, 32, 18)
 
-    # long path: X = S @ C^T then window row per granule (MXU matmul)
+    # long path: X = S @ C^T then window row per granule (one matmul)
     xi_long = jnp.einsum("ctbk,ik->ctbi", s, c_long,
                          preferred_element_type=dtype,
                          precision=jax.lax.Precision.HIGHEST)
@@ -966,9 +961,8 @@ def synth_from_blocks(blk, dtype, tail_halo=None, v_halo=None):
         # ---- synthesis filterbank (Frame.py:65-103): matmul + 16-tap FIR
         n_mat = jnp.asarray(T.synth_filter_matrix(), dtype)    # (64,32)
         st = y.transpose(0, 1, 3, 2).reshape(ch, tt * 18, 32)  # step major
-        # HIGHEST: the synthesis matmul feeds int16 PCM; bf16 MXU passes
-        # would cost ~3e-3 absolute error (audible floor), f32-emulation
-        # costs little here
+        # HIGHEST: the synthesis matmul feeds int16 PCM; a bf16 or TF32
+        # matmul would cost ~3e-3 absolute error (audible floor)
         v = jnp.einsum("cts,is->cti", st, n_mat, preferred_element_type=dtype,
                        precision=jax.lax.Precision.HIGHEST)
 
@@ -978,31 +972,16 @@ def synth_from_blocks(blk, dtype, tail_halo=None, v_halo=None):
         v_ext = jnp.concatenate([v_halo, v], axis=1)
         ts_total = tt * 18
 
-        if dtype == jnp.float32 and _pallas_fir_enabled():
-            # fused Pallas FIR (opt-in: MP3STEGO_TPU_PALLAS=1); ~1 ulp from
-            # the jnp path's even/odd-tap fold, see ops/pallas_kernels.py
-            from mp3stego_tpu.ops import pallas_kernels as pk
-            pcm_steps = pk.synth_fir_host(v_ext, ts_total)
-        else:
-            va_p, vb_p = v_ext[..., :32], v_ext[..., 32:]
-            d_win = jnp.asarray(T.SYNTH_WINDOW.reshape(16, 32), dtype)
-            pcm_steps = jnp.zeros((ch, ts_total, 32), dtype)
-            for j in range(16):  # reference sums j ascending (Frame.py:97-101)
-                src = va_p if j % 2 == 0 else vb_p
-                pcm_steps = pcm_steps + d_win[j] * jax.lax.dynamic_slice_in_dim(
-                    src, 15 - j, ts_total, axis=1)
+        va_p, vb_p = v_ext[..., :32], v_ext[..., 32:]
+        d_win = jnp.asarray(T.SYNTH_WINDOW.reshape(16, 32), dtype)
+        pcm_steps = jnp.zeros((ch, ts_total, 32), dtype)
+        for j in range(16):  # reference sums j ascending (Frame.py:97-101)
+            src = va_p if j % 2 == 0 else vb_p
+            pcm_steps = pcm_steps + d_win[j] * jax.lax.dynamic_slice_in_dim(
+                src, 15 - j, ts_total, axis=1)
 
     pcm = pcm_steps.reshape(ch, tt, 576)
     return pcm, tail[:, -1:], v[:, -15:]
-
-
-@functools.lru_cache(maxsize=1)
-def _pallas_fir_enabled() -> bool:
-    import os
-    if os.environ.get("MP3STEGO_TPU_PALLAS", "0") != "1":
-        return False
-    from mp3stego_tpu.ops import pallas_kernels as pk
-    return pk.available()
 
 
 def decode_granules_impl(prep, dtype_name="float64"):
@@ -1025,7 +1004,7 @@ def decode_granules_np(prep: dict, stages: dict = None) -> np.ndarray:
     rounding), which perturbs the float64 stream in the last ulp relative to
     the reference's separate mul/add arithmetic (Frame.py:65-218). NumPy never
     emits FMAs, so this path reproduces the reference float-for-float; the
-    jitted float32 path is the TPU throughput mode. Pass ``stages={}`` to
+    jitted float32 path is the device throughput mode. Pass ``stages={}`` to
     capture per-stage tensors for golden tests."""
     raw = dense_raw(prep, xp=np)
     pow43 = np.array([float(i) ** (4.0 / 3.0) for i in range(8207)])
@@ -1325,7 +1304,7 @@ def pcm_to_i16(pcm: np.ndarray) -> np.ndarray:
 
 def decode_pcm_i16(p) -> np.ndarray:
     """ParsedMP3 -> interleaved int16 PCM (samples, channels): the float32
-    TPU path fused with the WAV conversion, fetched at half the bytes."""
+    device path fused with the WAV conversion, fetched at half the bytes."""
     if p.num_frames == 0:
         return np.zeros((0, 2), np.int16)
     prep = host_prepare(p)

@@ -1,4 +1,4 @@
-"""Batched TPU encode numeric plane: polyphase analysis filterbank + forward MDCT
+"""Batched device encode numeric plane: polyphase analysis filterbank + forward MDCT
 + alias butterflies, in exact Q31 fixed point.
 
 The reference feeds a 512-sample ring buffer 32 samples at a time
@@ -47,7 +47,7 @@ def analysis_mdct(pcm):
     # needed sample for (i, k) is pcm[32t + 511 - i - 64k], i.e. index
     # j' = 511 - j maps bijectively to (k, i) = divmod(j', 64) — so reversing
     # W and reshaping to (8, 64) aligns it with the window table directly.
-    # (A 3D-index gather here lowers to scalar loads on TPU: ~20x slower.)
+    # (no 3D-index gather: the static reshape needs none)
     with jax.named_scope("an_window"):
         z = pcm.reshape(ch, (n // 32), 32)               # 32-sample frames
         w = jnp.concatenate([z[:, r:r + ts] for r in range(16)],

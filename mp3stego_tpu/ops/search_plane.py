@@ -1,5 +1,5 @@
 """Device-resident rate-control search: the encoder's full bisection + inner
-loop for EVERY granule as one batched TPU program.
+loop for EVERY granule as one batched device program.
 
 The reference searches sequentially per granule (~8 evaluations of quantize ->
 run-length -> table-select -> bit-count each, MP3_Encoder.py:958-996,
@@ -10,11 +10,11 @@ loop, all granules advancing in lockstep on their own step sizes. Only ~8-12
 evaluations ever happen per granule, each a dense (lanes, 576) vector pass.
 
 Bit-exactness strategy (the reference mixes an integer LUT path with a float64
-fallback, MP3_Encoder.py:403-409, and f64 is unavailable on TPU):
+fallback, MP3_Encoder.py:403-409; the device plane runs in float32):
 
   * LUT region (ln < 10000): ``int2idx[ln]`` is reproduced EXACTLY without
     the 10k-entry gather — as a threshold RANK (#{k: th[k] <= ln}, a fused
-    compare+reduce, ~2.5x faster than a TPU gather). Verified exhaustively
+    compare+reduce instead of a data-dependent gather). Verified exhaustively
     over the full domain by tests/test_search_plane.py.
   * float region (ln >= 10000): evaluated in float32 and LOGGED (step, bits).
     After the batch, the host re-evaluates every logged cell with the exact
@@ -81,15 +81,15 @@ def _sconsts():
     hlen = T.HUFF_LEN.astype(np.int32)
     pair_pack = (hlen[13] | (hlen[15] << 8) | (hlen[16] << 16)
                  | (hlen[24] << 24)).reshape(-1)               # (256,)
-    # unpacked twin of pair_pack for the MXU path: h_len of the four
+    # unpacked twin of pair_pack for the matmul path: h_len of the four
     # representative tables per (x,y) pair value, one column each
     pair_tab = np.stack([hlen[13].reshape(-1), hlen[15].reshape(-1),
                          hlen[16].reshape(-1), hlen[24].reshape(-1)],
                         axis=1)                                # (256, 4)
     # two-stage factorization of the same table: x -> the 64 (y, table)
     # channels. h[x*16+y, t] = (onehot_x @ pair_tab_x)[y*4 + t]: the 256-way
-    # one-hot build was compare-bound on the VPU; two 16-way one-hots do
-    # ~2x fewer compares for the same exact select (measured 1.5x on-chip)
+    # one-hot build is compare-bound; two 16-way one-hots do ~2x fewer
+    # compares for the same exact select
     pair_tab_x = pair_tab.reshape(16, 16 * 4)                  # (16, 64)
     quad_pack = (hlen[32, 0, :16] | (hlen[33, 0, :16] << 8))   # (16,)
     # hide mode: pair h_len channels for EVERY table a transform can emit.
@@ -105,7 +105,7 @@ def _sconsts():
         for s, t in enumerate(grp):
             w |= hlen[t].reshape(-1) << (8 * s)
         packs.append(w)
-    # unpacked twin for the MXU path: (256, 18) h_len per emitted table
+    # unpacked twin for the matmul path: (256, 18) h_len per emitted table
     hide_tab = np.stack([hlen[t].reshape(-1) for t in emit_tables], axis=1)
     # per-emitted-table linbits (0 for 13/15)
     emit_linbits = np.array([0, 0] + [int(T.HUFF_LINBITS[t])
@@ -147,9 +147,9 @@ def _quantize(labs64, xrabs_f32, xrmax64, s, c):
     # exact int2idx[lnc] as a TWO-LEVEL threshold rank: a coarse rank over
     # one threshold per 32-block picks the block, an exact one-hot matmul
     # selects that block's 32 thresholds (values <= 10000, exact in f32),
-    # and a fine rank counts within it. ~64 compares + one MXU matmul per
-    # element versus the old flat rank's ~1000 compares (itself ~2.5x a TPU
-    # gather, which lowers to scalar loads). Sentinel padding keeps the
+    # and a fine rank counts within it. ~64 compares + one matmul per
+    # element versus the old flat rank's ~1000 compares. Sentinel padding
+    # keeps the
     # coarse rank < n_blk, so the one-hot row always exists.
     with jax.named_scope("quant_rank"):
         coarse = jnp.asarray(c["th_coarse"])
@@ -261,9 +261,9 @@ def _cost(ix, addr_in, band, c, hide=None):
         nesc = (x > 14).astype(jnp.int32) + (y > 14).astype(jnp.int32)
         pidx = xc * 16 + yc
         # h_len of the 4 representative tables per pair, as an exact
-        # TWO-STAGE one-hot select: onehot(x) picks the (16, y*4+t) row on
-        # the MXU, onehot(y) folds the y axis on the VPU. Building two
-        # 16-way one-hots costs ~2x fewer VPU compares than the flat
+        # TWO-STAGE one-hot select: onehot(x) picks the (16, y*4+t) row by
+        # matmul, onehot(y) folds the y axis elementwise. Building two
+        # 16-way one-hots costs ~2x fewer compares than the flat
         # 256-way one-hot (which itself replaced a packed compare+reduce
         # sweeping 256 int words per pair); exact because every product has
         # a 0/1 factor and each sum has one nonzero term
@@ -345,8 +345,7 @@ def _cost(ix, addr_in, band, c, hide=None):
             # re-cost every region under its EMITTED table: the 18
             # emitted-table h_len channels per pair come from one exact
             # one-hot matmul (C,288,256)@(256,18); the per-pair channel
-            # select is a small compare+reduce (no take_along_axis — TPU
-            # lowers it to scalar loads)
+            # select is a small compare+reduce (no take_along_axis)
             emit_slot = jnp.asarray(c["emit_slot"])
             t_pp = jnp.sum(jnp.where(pm, choice[..., None], 0),
                            axis=1)                             # (C,288)
@@ -866,7 +865,7 @@ def _unpack_single(fin_h, ix8_h, wide_h, ix_dev, ls_dev, lb_dev) -> dict:
     The approx logs are NOT materialized here: ``_log_dev`` carries the
     resident device planes, and models/encoder._plane_redo gathers the
     needed rows together with its spectra gather (fetch_rows_logs) — one
-    device round trip instead of three on latency-bound links."""
+    device round trip instead of three."""
     out = {k: fin_h.astype(np.int32)[r] for r, k in enumerate(_FIN_ROWS)}
     out["ix"] = ix8_h
     ixw = {}

@@ -1,12 +1,12 @@
 """Scale-out layer: device meshes, sharded batch decode, frame-range sharding.
 
 The reference is strictly single-threaded (SURVEY.md §2.2/§5.8 — no parallel
-machinery exists there); this package is the TPU-native equivalent built from
+machinery exists there); this package is the accelerator equivalent built from
 first principles: `jax.sharding.Mesh` + `shard_map`, data parallelism over
 files on one mesh axis, sequence parallelism over the granule/time axis on the
 other, with the codec's two sequential carries (IMDCT overlap-add tail and the
 synthesis FIR's 15-substep V history) exchanged between shards as halos via
-`jax.lax.ppermute` over ICI.
+`jax.lax.ppermute` between devices.
 """
 
 from mp3stego_tpu.parallel.mesh import make_mesh  # noqa: F401

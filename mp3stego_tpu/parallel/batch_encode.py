@@ -9,7 +9,7 @@ reservoir/stuffing chain and frame serialization stay on host, overlapped in a
 thread pool (the native serializer releases the GIL).
 
 The reference has no multi-file mode at all (SURVEY.md §2.2); this layer is
-the TPU-native throughput construct for it.
+the accelerator throughput construct for it.
 """
 
 import os
@@ -121,9 +121,10 @@ def encode_files_batched(jobs: list, bitrate: int = 320, mesh=None,
 
 def _encode_group(group, sr_idx, nch, mesh, max_workers, results, errors):
     # per-device-program lane budget (lanes = files x channels x granules):
-    # the analysis and search temps scale with it, and ~50k lanes fits the
-    # v5e's 16 G HBM with headroom (8x30s stereo = 37k lanes; one 120s
-    # stereo file is 18.4k; 8x120s in one program needs 25.3 G and OOMs).
+    # the analysis and search temps scale with it (8x30s stereo = 37k
+    # lanes; one 120s stereo file is 18.4k). 49152 is a fixed budget, not
+    # derived from the card's memory; chip_smoke.py prints the peak device
+    # memory it reaches.
     # Groups above the budget run as pipelined sub-batches: sub-batch k+1's
     # PCM prep/stacking runs on a worker thread while the device runs k,
     # and host finishers overlap in the pool.
@@ -211,6 +212,11 @@ def _run_subbatch(group, staged, sr_idx, nch, tg_max, mesh, ex):
     res_all = SP.search_batch(xr, max_bits, sr_idx, want_scfsi=version3)
     if version3:
         tot_all, en_all = res_all["scfsi"]
+    # each file's spectra as a one-device array, cut from the shard that
+    # holds it: the finishers run in threads, and indexing the mesh-sharded
+    # xr there would launch multi-device programs from several threads at
+    # once, which can stall in the cards' collective rendezvous
+    xr_file = _per_file(xr)
 
     def finish(j):
         i, mp3_path, enc, nf = group[j]
@@ -233,7 +239,7 @@ def _run_subbatch(group, staged, sr_idx, nch, tg_max, mesh, ex):
                 res["ixw"][ch * tg + off] = row
         res["log_steps"] = res_all["log_steps"][j][lanes]
         res["log_bits"] = res_all["log_bits"][j][lanes]
-        xr_c = xr[j][jnp.asarray(lanes)]
+        xr_c = xr_file[j][jnp.asarray(lanes)]
         enc._plane_redo(res, xr_c, max_bits[j][lanes], tg)
         en_tot_raw = en_raw = None
         if version3:
@@ -246,3 +252,14 @@ def _run_subbatch(group, staged, sr_idx, nch, tg_max, mesh, ex):
         return mp3_path
 
     return {ex.submit(finish, j): group[j][0] for j in range(len(group))}
+
+
+def _per_file(xr) -> list:
+    """(F, N, 576) spectra, sharded or not -> F one-device (N, 576) arrays,
+    each sliced from the addressable shard that holds that file."""
+    out = [None] * xr.shape[0]
+    for sh in xr.addressable_shards:
+        lo = sh.index[0].start or 0
+        for k in range(sh.data.shape[0]):
+            out[lo + k] = sh.data[k]
+    return out

@@ -6,7 +6,7 @@ Frame.py:150-154) and the synthesis FIFO (15 sub-steps < 1 granule,
 Frame.py:80-101). Both carries are *bounded halos*, so a time-range shard only
 needs its left neighbour's boundary state: this module shard_maps the decode
 plane over a ``frames`` mesh axis and exchanges the halos with a single
-`jax.lax.ppermute` shift over ICI. Everything else is granule-local and runs
+`jax.lax.ppermute` shift between devices. Everything else is granule-local and runs
 without communication.
 
 This is the workload's context parallelism (SURVEY.md §5.7): the frame axis is

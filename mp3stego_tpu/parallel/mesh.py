@@ -2,7 +2,7 @@
 
 Axes:
   * ``files``  — data parallelism: independent MP3/WAV streams (no collectives;
-                 pure throughput scaling over ICI-attached chips).
+                 pure throughput scaling across devices).
   * ``frames`` — sequence parallelism: granule/time ranges of one stream;
                  shards exchange the codec's carried state (one granule of
                  IMDCT overlap + 15 synthesis V sub-steps) as halos.

@@ -3,12 +3,12 @@
 API-compatible with the reference mp3stego.steganography (steganography.py:10-183),
 including the ``reveal_massage`` spelling, the ``len#message`` framing, sys.exit
 path validation, and the always-delete temporary-WAV behaviour of
-hide/reveal/clear. Built on the TPU-native Decoder/Encoder stacks.
+hide/reveal/clear. Built on the Decoder/Encoder stacks.
 
 Beyond the reference surface, the constructor takes ``precision``:
 ``"float64"`` (default) is the bit-exact parity mode (host NumPy numeric
 plane, byte-identical WAVs), ``"float32"`` runs the decode numeric plane on
-the TPU — on the golden corpus the int16 output differs from the parity mode
+the device — on the golden corpus the int16 output differs from the parity mode
 on ~1e-4 of samples by at most 1 LSB (see tests/test_precision.py).
 """
 
@@ -62,7 +62,7 @@ class Steganography:
 
     :param quiet: if False, prints information about the processes and the files.
     :param precision: decode numeric plane mode — "float64" (bit-exact parity,
-        host) or "float32" (TPU; ≤1 LSB int16 deviation at ~1e-4 rate).
+        host) or "float32" (device; ≤1 LSB int16 deviation at ~1e-4 rate).
     :param keep_id3: carry the input's leading ID3v2 tag over to the output
         of ``hide_message``/``clear_file`` (the reference's re-encode drops
         tags — reference decoder.py skips ID3 and its encoder writes bare

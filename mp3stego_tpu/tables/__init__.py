@@ -1,4 +1,4 @@
-"""Constant tables for the TPU-native MP3 codec / steganography framework.
+"""Constant tables for the MP3 codec / steganography framework.
 
 All spec data (ISO/IEC 11172-3 Annex B Huffman codebooks, scalefactor band
 partitions, analysis/synthesis windows, region subdivision) lives in the packed

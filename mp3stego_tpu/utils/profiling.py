@@ -2,7 +2,7 @@
 
 The reference's only instrumentation is a wall-clock print of the parse loop
 (decoder/decoder.py:76-80) and tqdm progress bars (MP3_Parser.py:67,
-MP3_Encoder.py:607). The TPU-native equivalents here:
+MP3_Encoder.py:607). The equivalents here:
 
 * ``StageTimer`` — per-stage wall-clock accounting for the codec pipelines
   (host parse, host prepare, device dispatch, device fetch, serialization),
@@ -16,6 +16,7 @@ MP3_Encoder.py:607). The TPU-native equivalents here:
 
 import contextlib
 import os
+import re
 import time
 from collections import OrderedDict
 
@@ -74,70 +75,200 @@ def trace(log_dir: str = None):
         yield
 
 
-def parse_device_trace(log_dir: str) -> dict:
-    """Parse the newest ``jax.profiler`` trace under ``log_dir`` into per-op
-    records from the DEVICE timeline.
+_HLO_INSTR = re.compile(r"^\s*(?:ROOT\s+)?%?([\w.\-]+)\s*=\s(.*)$")
+_HLO_COMP = re.compile(r"^\s*(?:ENTRY\s+)?%?([\w.\-]+)\s.*\{\s*$")
+_HLO_OP_NAME = re.compile(r'\bop_name="([^"]*)"')
+_HLO_CALLS = re.compile(r"\bcalls=%?([\w.\-]+)")
 
-    Returns ``{"ops": [...], "module_runs": {name: count}}`` where each op
-    record carries ``name`` (HLO op), ``scope`` (the ``jax.named_scope`` path
-    segments from the op's ``tf_op`` metadata), ``dur_us`` (device time),
-    ``flops`` (XLA's model_flops — logical FLOPs of the lowered op, 2MNK for
-    dots regardless of precision passes), ``bytes`` (bytes_accessed) and
-    ``category`` (hlo_category). ``module_runs`` counts executions of each
-    jitted module inside the trace window, so callers can normalize per-op
-    sums to per-dispatch numbers.
+
+def hlo_op_names(hlo_text: str) -> dict:
+    """{HLO instruction name: [its ``op_name``, then the op_names of the
+    instructions in the computation it calls]} from a compiled module's text
+    (``jax.stages.Compiled.as_text()``). An op_name carries the
+    ``jax.named_scope`` path, and a fusion's own op_name is only its root's,
+    so the called computation's op_names say which scopes it also ran."""
+    comps, own, calls = {}, {}, {}
+    cur = None
+    for line in hlo_text.splitlines():
+        m = _HLO_INSTR.match(line)
+        if m and cur is not None:
+            name, rest = m.groups()
+            on = _HLO_OP_NAME.search(rest)
+            own[name] = on.group(1) if on else ""
+            if on:
+                comps[cur].append(on.group(1))
+            c = _HLO_CALLS.search(rest)
+            if c:
+                calls[name] = c.group(1)
+            continue
+        m = _HLO_COMP.match(line)
+        if m:
+            cur = m.group(1)
+            comps.setdefault(cur, [])
+    return {n: [own[n]] + comps.get(calls.get(n), []) for n in own}
+
+
+def _scope_path(op_name: str) -> list:
+    """'jit(f)/vmap(scope_a)/.../op' -> ['scope_a', ...]: the jit prefix and
+    the op itself dropped, transform wrappers around a component stripped
+    so named_scope labels survive batching."""
+    parts = [_unwrap(p) for p in op_name.rstrip(":").split("/") if p]
+    return parts[1:-1] if len(parts) > 2 else []
+
+
+def _scopes(primary: str, fused: list) -> list:
+    """Scope segments of a kernel: its own op_name's first, then those of
+    the instructions fused into it, most frequent first."""
+    out = _scope_path(primary)
+    counts = {}
+    for path in fused:
+        for seg in _scope_path(path):
+            counts[seg] = counts.get(seg, 0) + 1
+    out += [k for k in sorted(counts, key=counts.get, reverse=True)
+            if k not in out]
+    return out
+
+
+def _kernel_category(kernel: str) -> str:
+    """Coarse class of a GPU kernel from its name: XLA fusion kind, cuBLAS
+    or CUTLASS matrix product, copy, or the name itself."""
+    k = kernel.lower()
+    if "gemm" in k or "cublas" in k or "cutlass" in k:
+        return "gemm"
+    if k.startswith("memcpy") or k.startswith("memset"):
+        return "copy"
+    m = re.match(r"(loop|input|wrapped|triton)_", k)
+    return f"{m.group(1)} fusion" if m else k.split("_")[0]
+
+
+# XLA compile options that launch every thunk on its own instead of inside
+# a command buffer (CUDA graph), so a trace attributes each kernel, cuBLAS
+# ones included, to its HLO instruction.
+NO_COMMAND_BUFFERS = {"xla_gpu_enable_command_buffer": "",
+                      "xla_gpu_graph_min_graph_size": 1 << 30}
+
+
+def profile_compiled(lowered, args, log_dir: str, dispatches: int = 1):
+    """Compile ``lowered`` (a ``jax.stages.Lowered``) with
+    ``NO_COMMAND_BUFFERS``, warm it, trace ``dispatches`` steady calls under
+    ``log_dir`` and return (``parse_device_trace`` result, untraced seconds
+    per dispatch)."""
+    import jax
+    compiled = lowered.compile(compiler_options=NO_COMMAND_BUFFERS)
+    jax.block_until_ready(compiled(*args))
+    t0 = time.perf_counter()
+    for _ in range(dispatches):
+        out = compiled(*args)
+    jax.block_until_ready(out)
+    untraced_s = (time.perf_counter() - t0) / dispatches
+    with jax.profiler.trace(log_dir):
+        for _ in range(dispatches):
+            out = compiled(*args)
+        jax.block_until_ready(out)
+    return parse_device_trace(log_dir, compiled.as_text()), untraced_s
+
+
+def parse_device_trace(log_dir: str, hlo_text: str = "",
+                       backend: str = None) -> dict:
+    """Parse the newest ``jax.profiler`` trace under ``log_dir`` into per-op
+    records from the device timeline.
+
+    Reads the ``.xplane.pb`` with ``jax.profiler.ProfileData``. ``backend``
+    (default ``jax.default_backend()``) picks the timeline: on ``gpu`` the
+    ``/device:GPU:<n>`` planes, one line per CUDA stream, each kernel event
+    carrying ``hlo_module`` and ``hlo_op`` stats; a GPU trace without such a
+    plane is an error. On ``cpu`` the XLA thunk events of ``/host:CPU`` are
+    the timeline (the test backend). Kernels launched from a command buffer
+    (CUDA graph) report ``hlo_op == "command_buffer"`` and cannot be
+    attributed: that is an error too, so compile the traced program through
+    :func:`profile_compiled`. The ``jax.named_scope`` path of an instruction
+    comes from its ``op_name`` metadata in ``hlo_text`` (the compiled
+    module's ``as_text()``).
+
+    Returns ``{"ops": [...], "window_ms", "busy_ms", "busy_share"}``. Each
+    op record has ``name`` (HLO instruction, else kernel), ``kernel``,
+    ``module``, ``scope`` (named-scope segments: the kernel's own op_name
+    first, then those of the instructions fused into it), ``start_us``,
+    ``dur_us`` and ``category`` (kernel class). ``busy_ms`` is the union of
+    all device intervals (kernels and copies) and ``busy_share`` its
+    fraction of the profiling window.
     """
     import glob
-    import gzip
-    import json
 
-    dirs = sorted(glob.glob(os.path.join(log_dir, "plugins", "profile", "*")))
-    if not dirs:
+    import jax
+
+    backend = backend or jax.default_backend()
+    dev = {"gpu": "/device:GPU:", "cpu": "/host:CPU"}.get(backend)
+    if dev is None:
+        raise ValueError(f"no trace layout for backend {backend!r}")
+    runs = sorted(glob.glob(os.path.join(log_dir, "plugins", "profile", "*")))
+    if not runs:
         raise FileNotFoundError(f"no profile under {log_dir}")
-    files = glob.glob(os.path.join(dirs[-1], "*.trace.json.gz"))
-    if not files:
-        raise FileNotFoundError(f"no trace.json.gz under {dirs[-1]}")
-    with gzip.open(files[0]) as f:
-        d = json.load(f)
-    events = d.get("traceEvents", [])
-    dev_pids = set()
-    tnames = {}
-    for ev in events:
-        if ev.get("ph") != "M":
+    pbs = glob.glob(os.path.join(runs[-1], "*.xplane.pb"))
+    if not pbs:
+        raise FileNotFoundError(f"no .xplane.pb under {runs[-1]}")
+    data = jax.profiler.ProfileData.from_file(pbs[0])
+    op_names = hlo_op_names(hlo_text)
+    ops, spans = [], []
+    window_ns = None
+    planes = list(data.planes)
+    if not any(p.name.startswith(dev) for p in planes):
+        raise ValueError(f"{backend} trace under {log_dir} has no {dev} "
+                         f"plane (planes: {[p.name for p in planes]})")
+    for plane in planes:
+        if plane.name == "Task Environment":
+            st = dict(plane.stats)
+            if "profile_start_time" in st and "profile_stop_time" in st:
+                window_ns = (int(st["profile_stop_time"])
+                             - int(st["profile_start_time"]))
+        if not plane.name.startswith(dev):
             continue
-        if (ev.get("name") == "process_name"
-                and "/device:" in ev["args"].get("name", "")):
-            dev_pids.add(ev["pid"])
-        if ev.get("name") == "thread_name":
-            tnames[(ev["pid"], ev["tid"])] = ev["args"].get("name", "")
-    ops = []
-    module_runs = {}
-    for ev in events:
-        if ev.get("ph") != "X" or ev.get("pid") not in dev_pids:
-            continue
-        tn = tnames.get((ev["pid"], ev["tid"]), "")
-        args = ev.get("args", {})
-        if tn == "XLA Modules":
-            base = ev["name"].split("(")[0]
-            module_runs[base] = module_runs.get(base, 0) + 1
-            continue
-        if tn != "XLA Ops":
-            continue
-        tf_op = args.get("tf_op", "")
-        # 'jit(f)/vmap(scope_a)/.../op_name:' -> ['scope_a', ...]; transform
-        # wrappers (vmap/jit/scan/...) around a path component are stripped
-        # so named_scope labels survive batching
-        parts = [_unwrap(p) for p in tf_op.rstrip(":").split("/") if p]
-        scope = parts[1:-1] if len(parts) > 2 else []
-        ops.append(dict(
-            name=ev["name"],
-            scope=scope,
-            dur_us=float(ev.get("dur", 0.0)),
-            flops=int(args.get("model_flops", 0) or 0),
-            bytes=int(args.get("bytes_accessed", 0) or 0),
-            category=args.get("hlo_category", ""),
-        ))
-    return {"ops": ops, "module_runs": module_runs}
+        for line in plane.lines:
+            for ev in line.events:
+                st = dict(ev.stats)
+                if backend == "cpu" and "hlo_module" not in st:
+                    continue                       # host work, not a thunk
+                spans.append((ev.start_ns, ev.start_ns + ev.duration_ns))
+                if "hlo_module" not in st:
+                    continue                       # copies, not XLA ops
+                hlo = st.get("hlo_op") or ev.name
+                if hlo == "command_buffer":
+                    raise ValueError(
+                        f"kernel {ev.name} ran inside a command buffer and "
+                        "cannot be attributed; compile through "
+                        "profile_compiled")
+                paths = op_names.get(hlo, [""])
+                tf_op = st.get("tf_op", "")
+                if tf_op and not tf_op.startswith("XlaModule"):
+                    paths = [tf_op] + paths[1:]
+                ops.append(dict(
+                    name=hlo if hlo in op_names else ev.name,
+                    kernel=ev.name,
+                    module=st.get("hlo_module", ""),
+                    scope=_scopes(paths[0], paths[1:]),
+                    start_us=ev.start_ns / 1e3,
+                    dur_us=ev.duration_ns / 1e3,
+                    category=_kernel_category(ev.name),
+                ))
+    busy_ns = _union_ns(spans)
+    if window_ns is None:
+        window_ns = (max(e for _, e in spans) - min(s for s, _ in spans)
+                     if spans else 0)
+    return {"ops": ops, "window_ms": window_ns / 1e6, "busy_ms": busy_ns / 1e6,
+            "busy_share": busy_ns / window_ns if window_ns else 0.0}
+
+
+def _union_ns(spans) -> float:
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, None
+    for s, e in sorted(spans):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
 
 
 def _unwrap(part: str) -> str:
@@ -147,24 +278,17 @@ def _unwrap(part: str) -> str:
     return part
 
 
-# hlo categories of ops XLA's loop-rolling pass emits with no tf_op metadata
-# (a re-rolled unrolled loop, e.g. the synthesis FIR's 16 taps): callers that
-# know their program's only rolled loop can claim these via ``rolled_stage``
-ROLLED_CATEGORIES = ("while", "dynamic-update-slice", "dynamic-slice",
-                     "loop fusion")
-
-
-def stage_utilization(ops: list, stage_names: list, runs: int = 1,
-                      rolled_stage: str = None) -> dict:
+def stage_utilization(ops: list, stage_names: list, runs: int = 1) -> dict:
     """Aggregate device-op records per pipeline stage.
 
     ``stage_names`` are the ``jax.named_scope`` labels; an op whose scope
     path contains one of them is attributed to the FIRST match (fusions that
     span scope boundaries carry one representative op's scope — attribution
     at fusion granularity). Everything else lands in ``"other"``. Returns
-    per-stage: device ms per dispatch, time share, executed GFLOPs per
-    dispatch (XLA model_flops), bytes per dispatch, achieved TFLOP/s and
-    GB/s, and the dominant (by time) lowered-op category.
+    per-stage: device ms per dispatch, time share, op count, the distinct
+    kernels attributed to it, ``in_kernels`` (every kernel that ran any of
+    its ops, fused into another stage's kernel or not) and the dominant (by
+    time) op category.
     """
     agg = {}
     for op in ops:
@@ -173,27 +297,29 @@ def stage_utilization(ops: list, stage_names: list, runs: int = 1,
             if s in stage_names:
                 stage = s
                 break
-        if (stage == "other" and rolled_stage and not op["scope"]
-                and op["category"] in ROLLED_CATEGORIES):
-            stage = rolled_stage
-        a = agg.setdefault(stage, dict(us=0.0, flops=0, bytes=0, cats={}))
+        a = agg.setdefault(stage, dict(us=0.0, cats={}, n=0, kernels={}))
         a["us"] += op["dur_us"]
-        a["flops"] += op["flops"]
-        a["bytes"] += op["bytes"]
+        a["n"] += 1
+        k = op.get("name", "")
+        a["kernels"][k] = a["kernels"].get(k, 0.0) + op["dur_us"]
         a["cats"][op["category"]] = (a["cats"].get(op["category"], 0.0)
                                      + op["dur_us"])
+    within = {}          # stage -> kernels that ran any of its ops
+    for op in ops:
+        for stage in set(op["scope"]) & set(stage_names):
+            within.setdefault(stage, set()).add(op.get("name", ""))
+    for stage in within:
+        agg.setdefault(stage, dict(us=0.0, cats={}, n=0, kernels={}))
     total_us = sum(a["us"] for a in agg.values()) or 1e-9
     out = {}
     for stage, a in sorted(agg.items(), key=lambda kv: -kv[1]["us"]):
-        s = a["us"] / 1e6 / max(runs, 1)
         out[stage] = dict(
             ms=round(a["us"] / 1e3 / max(runs, 1), 3),
             share=round(a["us"] / total_us, 3),
-            gflops=round(a["flops"] / 1e9 / max(runs, 1), 3),
-            gbytes=round(a["bytes"] / 1e9 / max(runs, 1), 4),
-            tflops_s=round(a["flops"] / max(runs, 1) / max(s, 1e-12) / 1e12,
-                           2),
-            gb_s=round(a["bytes"] / max(runs, 1) / max(s, 1e-12) / 1e9, 1),
+            n_ops=a["n"],
+            n_kernels=len(a["kernels"]),
+            kernels=sorted(a["kernels"], key=a["kernels"].get, reverse=True),
+            in_kernels=sorted(within.get(stage, ())),
             dominant=max(a["cats"], key=a["cats"].get) if a["cats"] else "",
         )
     return out

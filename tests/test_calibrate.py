@@ -24,17 +24,15 @@ def _probe(**kw):
 
 
 def test_slow_link_selects_host_even_for_huge_batches():
-    """On the tunneled host (~30 MB/s), the PCM fetch alone caps the device
-    path below the host plane's rate — host wins at every size (this is the
-    round-2 BATCH_HOST_G=2560 behavior, now derived instead of hard-coded)."""
+    """Over a ~30 MB/s link the PCM fetch alone caps the device path below
+    the host plane's rate — host wins at every size."""
     p = _probe(link_out_mbps=30, link_in_mbps=30, host_plane_gps=65000)
     for g in (64, 2560, 100_000, 10_000_000):
         assert C.batch_decode_engine(g, p) == "host"
 
 
 def test_fast_link_selects_device():
-    """On a healthy PCIe/ICI host (GB/s link), the device plane's throughput
-    wins — the round-2 constant would have wrongly kept this on the host."""
+    """Over a GB/s link the device plane's throughput wins."""
     p = _probe(link_out_mbps=8000, link_in_mbps=8000,
                host_plane_gps=65000, device_gps=2_000_000)
     assert C.batch_decode_engine(100_000, p) == "device"

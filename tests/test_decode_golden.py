@@ -168,7 +168,7 @@ def test_wav_bytes(original_fixture_mp3, stego_golden, tmp_path):
 
 
 def test_float32_pcm_close(parsed):
-    """The TPU throughput mode (float32) must stay within int16 quantization
+    """The device throughput mode (float32) must stay within int16 quantization
     distance of the bit-exact path."""
     from mp3stego_tpu.ops import decode_plane as dp
     p64 = dp.decode_pcm(parsed, "float64")

@@ -58,7 +58,8 @@ def test_batched_i16_matches_per_file(parsed, fixture_mp3, monkeypatch):
 
     outs = decode_files_batched([fixture_mp3] * 2, out="int16")
     if native.available():
-        ref = (dp.decode_pcm(parsed, "float64") * 32767).astype(np.int16)
+        # the native plane saturates clipping peaks, as dp.pcm_to_i16 does
+        ref = dp.pcm_to_i16(dp.decode_pcm(parsed, "float64"))
     else:
         ref = dp.decode_pcm_i16(parsed)
     for o in outs:
@@ -68,7 +69,7 @@ def test_batched_i16_matches_per_file(parsed, fixture_mp3, monkeypatch):
     monkeypatch.setenv("MP3STEGO_TPU_BATCH_HOST_G", "0")
     outs = decode_files_batched([fixture_mp3] * 2, out="int16")
     ref32 = dp.decode_pcm_i16(parsed)
-    host = (dp.decode_pcm(parsed, "float32") * 32767).astype(np.int16)
+    host = dp.pcm_to_i16(dp.decode_pcm(parsed, "float32"))
     for o in outs:
         assert o.dtype == np.int16
         np.testing.assert_array_equal(o, ref32)
@@ -208,7 +209,7 @@ def test_prepare_batch_padding(parsed):
     assert batch["raw_i8"].shape[2] == t_full
     assert list(batch["lengths"]) == [t_full, 10]
     # the padded exception slots must scatter to an index that is STILL
-    # out-of-bounds after XLA:TPU truncates scatter indices to s32 — the raw
+    # out-of-bounds after XLA truncates scatter indices to s32 — the raw
     # sentinel _EXC_PAD_T*576 wraps to exactly 0 mod 2^32 and used to zero
     # sample (ch0, g0, s0) of every under-full file in the batch
     for j in range(2):

@@ -6,7 +6,7 @@ accumulation perturb the PCM by ~1e-7, and a small fraction of samples sit
 close enough to an int16 truncation boundary to flip. These tests pin the
 measured contract: deviation is at most 1 LSB and affects < 0.1% of samples —
 which is why ``precision="float64"`` stays the default parity mode and
-``"float32"`` is the opt-in TPU throughput mode (models/decoder.py,
+``"float32"`` is the opt-in device throughput mode (models/decoder.py,
 steganography.py).
 """
 

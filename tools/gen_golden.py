@@ -13,7 +13,7 @@ own test fixture and records:
                        final MP3 bytes (the "clear" re-encode of the decoded WAV).
   stego_golden.npz   — hide('ddd') output bytes + hide(longer) + too-long case.
 
-These goldens are the bit-exactness contract for the TPU-native rebuild.
+These goldens are the bit-exactness contract for this rebuild.
 
     python tools/gen_golden.py
 """
